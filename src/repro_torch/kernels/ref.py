@@ -1,0 +1,108 @@
+"""Plain unblocked oracles for every kernel in this package, plus the
+boundary-tie rule that count comparisons are held to.
+
+Clarity over speed: these are the references the tests and
+`chip_smoke.py` compare against, never a path the join runs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def pair_distances(q: torch.Tensor, r: torch.Tensor, metric: str) -> torch.Tensor:
+    """Distances between unit-normalized rows of q [nq,d] and r [nr,d]."""
+    dots = q.float() @ r.float().T
+    if metric == "cosine":
+        return 1.0 - dots
+    if metric == "l2":
+        return torch.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def range_count_hist(q: torch.Tensor, r: torch.Tensor, eps_grid: torch.Tensor,
+                     metric: str = "cosine") -> torch.Tensor:
+    """counts[i, j] = #{rows r_k of r : d(q_i, r_k) <= eps_grid[j]}. int32
+    [nq, m]; eps_grid sorted ascending."""
+    d = pair_distances(q, r, metric)
+    eps = eps_grid.to(device=d.device, dtype=torch.float32)
+    cmp = d[:, :, None] <= eps[None, None, :]
+    return cmp.sum(dim=1, dtype=torch.int32)
+
+
+def range_count(q: torch.Tensor, r: torch.Tensor, eps: float,
+                metric: str = "cosine") -> torch.Tensor:
+    """counts[i] = #-neighbors of q_i within eps. int32 [nq]."""
+    e = torch.tensor([float(eps)], dtype=torch.float32, device=q.device)
+    return range_count_hist(q, r, e, metric)[:, 0]
+
+
+def mlp_forward(params, x: torch.Tensor) -> torch.Tensor:
+    """ReLU MLP regressor forward. params: sequence of (w [din,dout],
+    b [1,dout]); no ReLU after the last layer, whose dout must be 1.
+    Returns f32 [n]."""
+    h = x.float()
+    for i, (w, b) in enumerate(params):
+        h = h @ w.float() + b.float().reshape(1, -1)
+        if i < len(params) - 1:
+            h = torch.relu(h)
+    return h[:, 0]
+
+
+# ------------------------------------------------------- boundary ties
+def tie_tolerance(dim: int) -> float:
+    """Dot-product window around eps inside which an f32 count may differ
+    from another f32 count: d * 2^-24 bounds the accumulation error of an
+    f32 dot of two unit vectors of dimension d (|sum q_i r_i| <= 1), and
+    8 * 2^-24 more covers the rounding of the distance formula (1 - c,
+    or sqrt(max(2 - 2c, 0)) seen through its derivative)."""
+    return (int(dim) + 8) * 2.0 ** -24
+
+
+def _dot_at_eps(eps: torch.Tensor, metric: str) -> torch.Tensor:
+    """The dot product at which the distance equals eps (float64)."""
+    e = eps.double()
+    return 1.0 - e if metric == "cosine" else 1.0 - e * e / 2.0
+
+
+def _tensor(x, device=None) -> torch.Tensor:
+    if isinstance(x, np.ndarray):           # copy: the array may be read-only
+        x = torch.from_numpy(np.array(x))
+    return torch.as_tensor(x, device=device)
+
+
+def count_mismatches(a, b, q, r, eps_grid, metric: str, *,
+                     nr_valid: int | None = None) -> dict:
+    """Hold two neighbour-count tables against each other up to boundary
+    ties. a, b: int [nq, m] counts of q's neighbours in r[:nr_valid]
+    within eps_grid [m]. A mismatch at (i, j) is accepted only if
+    |a - b| is at most the number of rows whose float64 dot with q_i lies
+    within `tie_tolerance` of the dot at eps_j. Float64 dots are computed
+    only for the rows that mismatch, on q's device.
+
+    Returns {"ok", "n_mismatch", "max_abs_diff", "n_unexplained"}."""
+    q = _tensor(q)
+    dev = q.device
+    a = _tensor(a, dev).long().reshape(q.shape[0], -1)
+    b = _tensor(b, dev).long().reshape(q.shape[0], -1)
+    r = _tensor(r, dev)
+    eps = _tensor(eps_grid, dev).reshape(-1)
+    nrv = r.shape[0] if nr_valid is None else int(nr_valid)
+    diff = (a - b).abs()
+    pairs = torch.nonzero(diff > 0)
+    out = {"n_mismatch": int(pairs.shape[0]),
+           "max_abs_diff": int(diff.max()) if diff.numel() else 0,
+           "n_unexplained": 0}
+    if pairs.shape[0]:
+        rows, inv = torch.unique(pairs[:, 0], return_inverse=True)
+        dots = q[rows].double() @ r[:nrv].double().T          # [k, nrv]
+        c_eps = _dot_at_eps(eps, metric)
+        tol = tie_tolerance(q.shape[1])
+        for s in range(0, pairs.shape[0], 256):
+            sl = slice(s, s + 256)
+            near = (dots[inv[sl]] - c_eps[pairs[sl, 1]][:, None]).abs() <= tol
+            ties = near.sum(dim=1)
+            d = diff[pairs[sl, 0], pairs[sl, 1]]
+            out["n_unexplained"] += int((d > ties).sum())
+    out["ok"] = out["n_unexplained"] == 0
+    return out
