@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (`src/repro_torch`): XJoin end to end
-on one CUDA card at the paper's data scale.
+on one CUDA card at the paper's data scale, then Xling in front of LSH
+and IVF-PQ with the index probe on the card.
 
     python3 chip_smoke.py [--epochs 3] [--seed 0]
 
 Phases, one JSON line each:
   0 device  — the card (`nvidia-smi` name and power limit), torch/CUDA
-              versions, and the nvcc build of both kernels from `csrc/`.
+              versions, and the nvcc build of all four kernels from
+              `csrc/` (one nvcc per source, started together).
   1 kernels — each hand-written kernel against its plain PyTorch version
               on the card at the main path's shapes (the range count also
-              at the full 120 000 x 120 000 ground-truth sweep):
-              CUDA-event medians, the bound (bytes over 3.35 TB/s vs fp32
+              at the full 120 000 x 120 000 ground-truth sweep; the probe
+              kernels on the LSH tables and IVF-PQ state of phase 4's
+              indexes, built here once more on their own):
+              CUDA-event medians of one call (for the probe kernels also
+              the profiler's device time per call, without the host's
+              launch time), the bound (bytes over 3.35 TB/s vs fp32
               operations over 67 TFLOP/s, the larger), the plain
-              version's time and, for the range count, cuBLAS `q @ r.T`
-              as a partial yardstick.
+              version's time and the nearest PyTorch call as a partial
+              yardstick (cuBLAS `q @ r.T`; the gather without the dedup;
+              `torch.topk` over precomputed ADC values).
   2 fit     — glove stand-in, n = 150 000 (R 120 000 x 200, S 30 000):
               `JoinPlan(R).filter("xling", tau=50, xdt="fpr",
               estimator="rmi", epochs=E).search("naive")`; the ground-truth
@@ -25,11 +32,25 @@ Phases, one JSON line each:
               the card (exact up to boundary ties for searched queries, 0
               for skipped ones); then one more pass of the same stream
               under torch.profiler gives the device busy share.
+  4 probe   — the same R, S, batches, eps and tau and the SAME fitted
+              filter, in two plans sharing phase 2's engine:
+              `verify("lsh")` and `verify("ivfpq")`, both
+              `on(probe="device")` (index defaults: LSH k 18, l 10,
+              n_probes 4, W 2.5; IVF-PQ C 300, m 25, n_probe 50,
+              n_candidates 1000). Per route: index build seconds, LSH
+              overflow_frac, probe-table bytes, skip fraction, recall
+              against phase 3's exact counts, batch latency, q/s, host
+              syncs and kernel launches per batch; every batch's counts
+              equal those of the same route run with the plain versions
+              of both probe kernels, and never above the exact counts
+              beyond boundary ties; then a profiled second pass.
 Then the card's `nvidia-smi` line, the kernels summary line, and
 {"ok": true, "device": {...}} as the last line. Every kernel counter is
-zeroed just before phase 2 and read right after phase 3: the launches
-reported are those of the main path only. Any failure raises and exits
-non-zero; without a CUDA device it exits 2 before printing a result.
+zeroed just before phase 2 and read right after phase 3, and zeroed
+again just before each route of phase 4 and read right after it: the
+launches reported are those of the main paths only. Any failure raises
+and exits non-zero; without a CUDA device it exits 2 before printing a
+result.
 """
 from __future__ import annotations
 
@@ -39,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -75,6 +97,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time of one call's `kernel` launches in ms: the profiler's
+    device time of the kernels whose name holds `kernel`, over `reps`
+    calls. Unlike `cuda_ms` it leaves out the host's time to launch, which
+    a kernel of a few microseconds does not hide."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    assert total > 0, f"the profiler saw no {kernel} launch"
+    return total / 1e3 / reps
 
 
 def nvidia_smi_line() -> str:
@@ -144,6 +185,138 @@ def mlp_case(d0: int, n: int, gen, reps: int) -> dict:
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def lsh_gather_case(tables, pb, reps: int) -> dict:
+    """Kernel vs plain version on the LSH member tables; raises unless the
+    ids are equal. Yardstick: the advanced-index gather alone, without
+    the dedup."""
+    import torch
+    from repro_torch.kernels import lsh_gather
+    got = lsh_gather.lsh_bucket_gather(tables, pb)
+    want = lsh_gather.lsh_bucket_gather_plain(tables, pb)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    assert mismatches == 0, f"lsh_bucket_gather: {mismatches} ids differ"
+    q, l, p = pb.shape
+    cap = tables.shape[2]
+    t_idx = torch.arange(l, device=pb.device)[None, :, None]
+    pbl = pb.long()
+    bound_ms, bound_by = bound(4 * q * l * p * (1 + 2 * cap), 0.0)
+    return {"shape": {"q": q, "l": l, "B": tables.shape[1], "cap": cap,
+                      "p": p},
+            "max_abs_err": 0, "mismatches": mismatches,
+            "dup_blanked_frac": float((got < 0).float().mean()
+                                      - (tables[t_idx, pbl] < 0)
+                                      .float().mean()),
+            "ms": cuda_ms(lambda: lsh_gather.lsh_bucket_gather(tables, pb),
+                          reps),
+            "device_ms": device_ms(lambda: lsh_gather.lsh_bucket_gather(
+                tables, pb), reps, "lsh_bucket_gather_kernel"),
+            "plain_ms": cuda_ms(lambda: lsh_gather.lsh_bucket_gather_plain(
+                tables, pb), reps),
+            "library_ms": cuda_ms(lambda: tables[t_idx, pbl], reps),
+            "library": "tables[arange(l), pb] advanced indexing: the gather "
+                       "without the dedup",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def adc_rank_case(q, cbs, cand, codes, n_cand: int, reps: int) -> dict:
+    """Kernel vs plain version on a probed IVF-PQ pool; raises unless the
+    ids are equal, in order. Yardstick: `torch.topk` over precomputed ADC
+    values, the selection alone."""
+    import torch
+    from repro_torch.kernels import adc_rank
+    got = adc_rank.adc_rank(q, cbs, cand, codes, n_cand=n_cand)
+    want = adc_rank.adc_rank_plain(q, cbs, cand, codes, n_cand=n_cand)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    assert mismatches == 0, f"adc_rank: {mismatches} ids differ"
+    b, C = cand.shape
+    m, _, seg = cbs.shape
+    live = int((cand >= 0).sum())
+    adc = torch.rand((b, C), device=q.device)
+    bound_ms, bound_by = bound(
+        4 * q.numel() + 4 * cbs.numel() + 4 * cand.numel() + codes.numel()
+        + 4 * b * n_cand,
+        b * m * 256 * (6.0 * seg + 3) + float(live) * m)
+    return {"shape": {"b": b, "C": C, "m": m, "seg": seg,
+                      "n": codes.shape[0], "n_cand": n_cand},
+            "live_frac": live / max(b * C, 1),
+            "max_abs_err": 0, "mismatches": mismatches,
+            "ms": cuda_ms(lambda: adc_rank.adc_rank(q, cbs, cand, codes,
+                                                    n_cand=n_cand), reps),
+            "device_ms": device_ms(lambda: adc_rank.adc_rank(
+                q, cbs, cand, codes, n_cand=n_cand), reps, "adc_rank_kernel"),
+            "plain_ms": cuda_ms(lambda: adc_rank.adc_rank_plain(
+                q, cbs, cand, codes, n_cand=n_cand), 1, warmup=0),
+            "library_ms": cuda_ms(lambda: torch.topk(adc, n_cand, dim=1,
+                                                     largest=False), reps),
+            "library": "torch.topk(adc, n_cand, largest=False) over a "
+                       "precomputed [b, C] matrix: the selection alone",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def plain_lsh_probe(qpos, proj, bias, salt, tables, expand, *, metric, W,
+                    n_probes, n_buckets):
+    """The LSH probe with the plain version of its kernel."""
+    from repro_torch.core.probe import _lsh_pb
+    from repro_torch.kernels.lsh_gather import lsh_bucket_gather_plain
+    return lsh_bucket_gather_plain(tables, _lsh_pb(
+        qpos, proj, bias, salt, expand, metric=metric, W=W,
+        n_probes=n_probes, n_buckets=n_buckets))
+
+
+def plain_ivfpq_probe(q, centroids, lists, codes, codebooks, *, n_probe,
+                      n_cand):
+    """The IVF-PQ probe with the plain version of its kernel, in the same
+    row tiles as the package's probe."""
+    import torch
+    from repro_torch.core.probe import ivfpq_pool, probe_tile_rows
+    from repro_torch.kernels.adc_rank import adc_rank_plain
+    tile = probe_tile_rows(n_probe * lists.shape[1])
+    out = torch.empty((q.shape[0], n_cand), dtype=torch.int32,
+                      device=q.device)
+    for i in range(0, q.shape[0], tile):
+        qb = q[i:i + tile]
+        out[i:i + tile] = adc_rank_plain(
+            qb, codebooks, ivfpq_pool(qb, centroids, lists, n_probe=n_probe),
+            codes, n_cand=n_cand)
+    return out
+
+
+class PlainProbeKernels:
+    """The engine-cached index `join`, probed on the card with the PLAIN
+    PyTorch versions of the probe kernels: the route phase 4 holds the
+    kernels' route against (a plug-in DeviceSearcher that is its own
+    probe spec). It probes the very tables the kernels' route uploaded."""
+
+    def __init__(self, join):
+        self.join, self.metric, self.R = join, join.metric, join.R
+        self.name = f"{join.name}-plain"
+
+    def candidates(self, Q):
+        """The index's host probe."""
+        return self.join.candidates(Q)
+
+    def device_probe(self, eps=None):
+        """This object is the probe spec."""
+        return self
+
+    def place(self, engine):
+        """A placed probe over the kernels' route's uploaded state."""
+        import functools
+        from repro_torch.core.probe import PlacedProbe
+        j, ref = self.join, engine.device_probe_for(self.join, "device")
+        fn = (functools.partial(plain_lsh_probe, metric=j.metric, W=j.W,
+                                n_probes=j.n_probes, n_buckets=j.n_buckets)
+              if j.name == "lsh" else
+              functools.partial(plain_ivfpq_probe, n_probe=j.n_probe,
+                                n_cand=ref.cand_width))
+        return PlacedProbe(engine, name=self.name, probe_fn=fn,
+                           state=ref.state,
+                           table_bytes=ref.table_bytes_per_device,
+                           cand_width=ref.cand_width)
+
+
 def profile_serve(plan, batches, eps: float) -> dict:
     """One more pass of the same stream under torch.profiler: device busy
     share (kernel + copy time over wall time) and the largest kernels.
@@ -187,8 +360,12 @@ def main(argv=None) -> int:
               "runs the port on a CUDA card only", file=sys.stderr)
         return 2
     from repro_torch.core import JoinPlan
+    from repro_torch.core.joins import IVFPQJoin, LSHJoin
+    from repro_torch.core.probe import (_lsh_pb, ivfpq_pool, ivfpq_state,
+                                        lsh_state)
     from repro_torch.data import load_dataset
-    from repro_torch.kernels import build, fused_mlp, range_count
+    from repro_torch.kernels import (adc_rank, build, fused_mlp, lsh_gather,
+                                     range_count)
     from repro_torch.kernels.ref import count_mismatches
     from repro_torch.utils import set_fp32_precision
     set_fp32_precision()
@@ -197,7 +374,7 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------- 0: device
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    built = build.build("range_count", "fused_mlp")
+    built = build.build("range_count", "fused_mlp", "lsh_gather", "adc_rank")
     emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
@@ -224,11 +401,39 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     mlp_cases = [mlp_case(201, 8192, gen, reps=20),
                  mlp_case(961, 8192, gen, reps=20)]
-    emit("kernels", range_count=rc_cases, mlp_forward=mlp_cases)
+    # the probe kernels on phase 4's index state, built here on its own
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # LSH overflow
+        k_lsh = LSHJoin(R, spec.metric, device="cuda")
+    k_ivf = IVFPQJoin(R, spec.metric, device="cuda")
+    index_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    proj, bias, salt, tables, expand = lsh_state(k_lsh, dev)
+    centroids, lists, codes, codebooks = ivfpq_state(k_ivf, dev)
+    n_cand = min(k_ivf.n_candidates, k_ivf.n_probe * k_ivf.lists.shape[1])
+    lsh_cases, adc_cases = [], []
+    for nq in (640, 4096):
+        qd = Sd[:nq]
+        pb = _lsh_pb(qd, proj, bias, salt, expand, metric=spec.metric,
+                     W=k_lsh.W, n_probes=k_lsh.n_probes,
+                     n_buckets=k_lsh.n_buckets)
+        lsh_cases.append(lsh_gather_case(tables, pb, reps=20))
+        pool = ivfpq_pool(qd, centroids, lists, n_probe=k_ivf.n_probe)
+        adc_cases.append(adc_rank_case(qd, codebooks, pool, codes, n_cand,
+                                       reps=5))
+        del pool
+    emit("kernels", range_count=rc_cases, mlp_forward=mlp_cases,
+         lsh_bucket_gather=lsh_cases, adc_rank=adc_cases,
+         probe_index_build_s=index_s)
+    del proj, bias, salt, tables, expand, centroids, lists, codes, codebooks
+    torch.cuda.empty_cache()
 
     # ----------------------------------- 2: fit (main path starts here)
-    range_count.KERNEL.launches = 0
-    fused_mlp.KERNEL.launches = 0
+    kernels = {"range_count": range_count, "fused_mlp": fused_mlp,
+               "lsh_bucket_gather": lsh_gather, "adc_rank": adc_rank}
+    for mod in kernels.values():
+        mod.KERNEL.launches = 0
     plan = (JoinPlan(R, spec.metric)
             .filter("xling", tau=50, xdt="fpr", estimator="rmi",
                     epochs=args.epochs)
@@ -279,6 +484,7 @@ def main(argv=None) -> int:
     eps1 = torch.tensor([eps], device="cuda")
     found = true_total = 0
     n_searched = 0
+    trues, masks = [], []       # exact counts, verdicts: for phase 4
     for b, res in zip(batches, results):
         qd = torch.from_numpy(b).cuda()
         X = torch.cat([qd, torch.full((len(b), 1), eps, device="cuda")], 1)
@@ -293,6 +499,8 @@ def main(argv=None) -> int:
                                  qd[torch.from_numpy(searched).cuda()], Rd,
                                  eps1, spec.metric)
         assert check["ok"], f"served counts disagree with the oracle: {check}"
+        trues.append(true)
+        masks.append(searched)
         found += int(np.minimum(res.counts, true).sum())
         true_total += int(true.sum())
         n_searched += res.n_searched
@@ -306,6 +514,99 @@ def main(argv=None) -> int:
          launches_per_batch={k: v / len(batches)
                              for k, v in serve_launches.items()},
          profile_second_pass=prof)
+
+    # ------------------------------------------------------------ 4: probe
+    probe_launches = {}
+    for name in ("lsh", "ivfpq"):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            join = engine.verifier(name)
+        index_build_s = time.perf_counter() - t0
+        pplan = (JoinPlan(R, spec.metric).filter(filt, tau=50, xdt="fpr")
+                 .search("naive").verify(name)
+                 .on(engine=engine, probe="device", device="cuda"))
+        t0 = time.perf_counter()
+        pplan.build()
+        pthr = pplan._filter_state(eps)[1]      # XDT, before the counters
+        plan_build_s = time.perf_counter() - t0
+        desc = pplan.describe()["exec"]["probe"]
+        # phase 1's kernel rows ran on this route's index state
+        assert (np.array_equal(join.tables, k_lsh.tables) if name == "lsh"
+                else all(np.array_equal(getattr(join, k), getattr(k_ivf, k))
+                         for k in ("centroids", "lists", "codes",
+                                   "codebooks"))), \
+            f"{name}: the engine's index differs from phase 1's"
+        # ---- this route's main path: counters zeroed, driven, read ----
+        for mod in kernels.values():
+            mod.KERNEL.launches = 0
+        engine.host_syncs.clear()
+        ppulled, presults, platency = [], [], []
+
+        def pfeed():
+            for b in batches:
+                ppulled.append(time.perf_counter())
+                yield b
+        t0 = time.perf_counter()
+        for res in pplan.stream(pfeed(), eps, depth=2):
+            platency.append(1e3 * (time.perf_counter()
+                                   - ppulled[len(presults)]))
+            presults.append(res)
+        pserve_s = time.perf_counter() - t0
+        plaunch = {k: mod.KERNEL.launches for k, mod in kernels.items()}
+        psyncs = dict(engine.host_syncs)
+        # ---- route over: the checks below launch kernels uncounted ----
+        probe_launches[name] = plaunch
+        kname = "lsh_bucket_gather" if name == "lsh" else "adc_rank"
+        assert len(presults) == len(batches)
+        assert plaunch[kname] > 0, f"the {name} route never ran {kname}"
+        assert psyncs == {"n_pos": len(batches), "result": len(batches)}, \
+            f"{name} route host syncs: {psyncs}"
+        assert float(pthr) == float(thr), "XDT threshold differs"
+        plain = (JoinPlan(R, spec.metric).filter(filt, tau=50, xdt="fpr")
+                 .search("naive").verify(PlainProbeKernels(join))
+                 .on(engine=engine, probe="device", device="cuda"))
+        pfound = pn_searched = ptrue_searched = 0
+        for b, res, pres, true, mask in zip(
+                batches, presults, plain.stream(batches, eps, depth=2),
+                trues, masks):
+            assert res.meta["probe"] == "device" == pres.meta["probe"]
+            np.testing.assert_array_equal(res.counts, pres.counts,
+                                          err_msg=f"{name}: kernels vs plain")
+            check = count_mismatches(res.counts, true,
+                                     torch.from_numpy(b).cuda(), Rd, eps1,
+                                     spec.metric, at_most=True)
+            assert check["ok"], f"{name} counts above the exact: {check}"
+            pfound += int(np.minimum(res.counts, true).sum())
+            ptrue_searched += int(true[mask].sum())
+            pn_searched += res.n_searched
+        assert pn_searched == n_searched, "phase 4 searched other queries"
+        pprof = profile_serve(pplan, batches, eps)
+        emit("probe", route=name, verify=name, probe="device",
+             index_params={k: getattr(join, k) for k in (
+                 ("k", "l", "n_probes", "W", "n_buckets", "cap")
+                 if name == "lsh" else
+                 ("C", "m", "seg", "n_probe", "n_candidates"))},
+             index_build_s=index_build_s, plan_build_s=plan_build_s,
+             same_index_as_phase1=True,
+             overflow_frac=desc["overflow_frac"],
+             warnings=[str(w.message) for w in caught],
+             probe_table_bytes=desc["table_bytes"],
+             cand_width=desc["cand_width"],
+             pool_width=(None if name == "lsh"
+                         else join.n_probe * join.lists.shape[1]),
+             skip_frac=1 - pn_searched / len(S),
+             recall=pfound / max(true_total, 1),
+             recall_of_searched=pfound / max(ptrue_searched, 1),
+             batch_latency_ms=platency, serve_s=pserve_s,
+             queries_per_s=len(S) / pserve_s,
+             host_syncs_per_batch={k: v / len(batches)
+                                   for k, v in psyncs.items()},
+             launches=plaunch,
+             launches_per_batch={k: v / len(batches)
+                                 for k, v in plaunch.items()},
+             equal_to_plain_kernels_route=True,
+             profile_second_pass=pprof)
 
     # ------------------------------------------------------------- summary
     print(smi, flush=True)
@@ -325,6 +626,20 @@ def main(argv=None) -> int:
          "launches": launches["fused_mlp"],
          **{k: first_mlp[k] for k in keys}, "shape": first_mlp["shape"],
          "other_shapes": mlp_cases[1:]},
+        {"name": "lsh_bucket_gather", "route": "cuda",
+         "source": "src/repro_torch/csrc/lsh_gather.cu",
+         "replaces": "src/repro/kernels/lsh_gather.py:121",
+         "launches": probe_launches["lsh"]["lsh_bucket_gather"],
+         **{k: lsh_cases[0][k] for k in keys + ("device_ms",)},
+         "shape": lsh_cases[0]["shape"],
+         "other_shapes": lsh_cases[1:]},
+        {"name": "adc_rank", "route": "cuda",
+         "source": "src/repro_torch/csrc/adc_rank.cu",
+         "replaces": "src/repro/kernels/adc_rank.py:174",
+         "launches": probe_launches["ivfpq"]["adc_rank"],
+         **{k: adc_cases[0][k] for k in keys + ("device_ms",)},
+         "shape": adc_cases[0]["shape"],
+         "other_shapes": adc_cases[1:]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

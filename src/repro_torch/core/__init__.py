@@ -5,8 +5,12 @@
   atcs.py   — adaptive training-condition selection (Algorithm 1)
   xdt.py    — FPR/mean XDT selection + Eq. 2 interpolated targets
   xjoin.py  — legacy XJoin shims over JoinPlan
-  engine.py — the device-resident join engine (one device, R replicated)
-  joins/    — join methods (naive) behind `make_join`
+  engine.py — the device-resident join engine (one device, R replicated):
+              the exact verify and the approximate routes with their
+              index probe on the device or the host
+  probe.py  — device probing: LSH hashing / multiprobe, the IVF-PQ coarse
+              probe, placed probe tables, the DeviceSearcher registry
+  joins/    — join methods (naive, lsh, ivfpq) behind `make_join`
 """
 from repro_torch.core import atcs, xdt
 from repro_torch.core.api import Filter, JoinPlan, JoinResult, as_filter

@@ -8,11 +8,17 @@ the port's subset of `repro/core/api.py`.
     res = plan.run(Q, eps=0.45)
     for r in plan.stream(batches, eps=0.45, depth=2): ...
 
+    plan = (JoinPlan(R, "cosine")
+            .filter("xling", tau=50)
+            .search("naive").verify("ivfpq")      # Xling in front of IVF-PQ
+            .on(probe="device"))
+
 Ported: `filter("xling" | "none" | XlingFilter | Filter object |
-callable)`, `search("naive" | NaiveJoin over the plan's R)`,
-`verify("auto" | "exact")`, `on(backend=, block=, engine=, cache_key=,
-device=)`, `build`, `run`, `stream`, `session`, `describe`. Every other
-filter/search/verify value raises "not ported yet" at `build()`.
+callable)`, `search("naive" | "lsh" | "ivfpq" | a Searcher over the
+plan's R)`, `verify("auto" | "exact" | "lsh" | "ivfpq" | a Searcher
+object)`, `on(backend=, block=, engine=, cache_key=, device=, probe=)`,
+`build`, `run`, `stream`, `session`, `describe`. Every other
+filter/search/verify value raises at `build()`.
 
 The whole configuration is validated once at `build()`; the engine pins
 R on its device once, and the XDT threshold is calibrated once per eps
@@ -28,8 +34,9 @@ from typing import (Any, Callable, Iterable, Iterator, Optional, Protocol,
 
 import numpy as np
 
-from repro_torch.core.engine import JoinEngine, _check_block
-from repro_torch.core.joins import make_join
+from repro_torch.core.engine import (PROBE_MODES, VERIFY_BACKENDS, JoinEngine,
+                                     _check_block)
+from repro_torch.core.joins import JOINS, make_join
 from repro_torch.core.joins.naive import NaiveJoin
 from repro_torch.core.xling import XlingConfig, XlingFilter
 
@@ -43,6 +50,20 @@ class Filter(Protocol):
 
     def verdicts(self, Q: np.ndarray, eps: float) -> np.ndarray:
         """bool [q]: True = search this query, False = skip it."""
+        ...
+
+
+@runtime_checkable
+class Searcher(Protocol):
+    """A join method over R. Required: `query_counts(Q, eps) -> int32
+    [q]`, plus `.name` / `.exact` / `.metric` / `.R` attributes. Optional
+    (the probe/verify split): `candidates(Q[, eps]) -> int32 [q, C]` (-1
+    padded), which the engine verifies on device, and `device_probe(eps)
+    -> spec | None`, which lets the engine probe on device too
+    (`core/probe.py`)."""
+
+    def query_counts(self, Q: np.ndarray, eps: float) -> np.ndarray:
+        """int32 [q] neighbour counts of each query within eps."""
         ...
 
 
@@ -171,6 +192,14 @@ class _BuiltPlan:
     engine: JoinEngine
     base: Any
     filter: Optional[Any]
+    verify_route: Any                       # "exact" | name | Searcher
+    verify_label: str
+    placed_probe: Any = None                # PlacedProbe | None
+
+
+def _spec_name(spec) -> str:
+    """Display name of a filter/search/verify spec (string or instance)."""
+    return spec if isinstance(spec, str) else type(spec).__name__
 
 
 class JoinPlan:
@@ -182,7 +211,7 @@ class JoinPlan:
     `JoinEngine` (default device "cuda"), and fits a by-name filter with
     its ground-truth sweep on that engine."""
 
-    _ON_KEYS = ("backend", "block", "engine", "cache_key", "device")
+    _ON_KEYS = ("backend", "block", "engine", "cache_key", "device", "probe")
 
     def __init__(self, R: np.ndarray, metric: str = "cosine"):
         self._R = np.asarray(R, np.float32)
@@ -191,7 +220,8 @@ class JoinPlan:
         self._search_spec: tuple[Any, dict] = ("naive", {})
         self._verify_spec: tuple[Any, dict] = ("auto", {})
         self._exec: dict = {"backend": "auto", "block": None, "engine": None,
-                            "cache_key": None, "device": "cuda"}
+                            "cache_key": None, "device": "cuda",
+                            "probe": "auto"}
         self._built: Optional[_BuiltPlan] = None
         self._device_filter_cache: dict = {}
 
@@ -206,15 +236,22 @@ class JoinPlan:
         return self
 
     def search(self, method="naive", **params) -> "JoinPlan":
-        """Select the base join: "naive" (params go to `NaiveJoin`) or a
-        `NaiveJoin` instance built over this plan's R."""
+        """Select the base join: a registry name ("naive", "lsh", "ivfpq";
+        params go to its constructor) or a Searcher instance built over
+        this plan's R."""
         self._search_spec = (method, dict(params))
         self._built = None
         return self
 
     def verify(self, backend="auto", **params) -> "JoinPlan":
-        """Select how positives are verified: "auto" or "exact" — both the
-        engine's brute-force sweep for the naive base."""
+        """Select how positives are verified: "auto" (the exact sweep for
+        the naive base; otherwise the base verifies its own positives —
+        on device through its `candidates()` when it has them, by its own
+        `query_counts()` when not), "exact" (the engine's brute-force
+        sweep; naive base only), "lsh" / "ivfpq" (an engine-cached index;
+        explicit params pin the built instance to this plan), or a
+        Searcher instance. Naming a backend REPLACES the base's own
+        verification; the filter still gates which queries reach it."""
         self._verify_spec = (backend, dict(params))
         self._built = None
         return self
@@ -224,7 +261,11 @@ class JoinPlan:
         `block` (compaction quantum of the exact verify; None = exactly
         the positives, see `JoinEngine`), `engine` (share a prebuilt `JoinEngine` over the same R),
         `cache_key` (ground-truth table disk cache for the xling fit),
-        `device` ("cuda" default, or "cpu")."""
+        `device` ("cuda" default, or "cpu"), `probe` ("auto" | "device" |
+        "host": where the approximate verify route's index probe runs;
+        "auto" picks the device whenever the searcher advertises
+        `device_probe`, "device" requires it and fails at build without
+        it)."""
         unknown = set(opts) - set(self._ON_KEYS)
         if unknown:
             raise ValueError(f"on(): unknown or not ported option(s) "
@@ -244,17 +285,34 @@ class JoinPlan:
     def _build_base(self, engine: JoinEngine):
         spec, params = self._search_spec
         if isinstance(spec, str):
-            if spec != "naive":
-                raise _not_ported("search", spec, ["'naive'"])
-            return make_join("naive", self._R, self.metric,
-                             backend=self._exec["backend"], engine=engine,
-                             **params)
-        if not isinstance(spec, NaiveJoin):
-            raise _not_ported("search", spec, ["'naive'", "NaiveJoin"])
-        if spec.metric != self.metric or not self._same_R(spec.R):
-            raise ValueError("search(NaiveJoin): instance is built over a "
-                             "different (R, metric) than this plan")
+            if spec == "naive":
+                return make_join("naive", self._R, self.metric,
+                                 backend=self._exec["backend"], engine=engine,
+                                 **params)
+            if spec not in JOINS:
+                raise _not_ported("search", spec,
+                                  [repr(k) for k in JOINS] + ["Searcher"])
+            return make_join(spec, self._R, self.metric,
+                             **{"device": engine.device, **params})
+        if not isinstance(spec, Searcher):
+            raise ValueError(
+                f"search({type(spec).__name__}): instance must satisfy the "
+                "Searcher protocol (query_counts(Q, eps))")
+        self._check_instance("search", spec)
         return spec
+
+    def _check_instance(self, kind: str, spec) -> None:
+        """A searcher instance must be built for this plan's metric and
+        over this plan's R."""
+        if getattr(spec, "metric", self.metric) != self.metric:
+            raise ValueError(
+                f"{kind}({type(spec).__name__}): instance is built for "
+                f"metric {getattr(spec, 'metric')!r}, the plan for "
+                f"{self.metric!r}")
+        if not self._same_R(getattr(spec, "R", self._R)):
+            raise ValueError(
+                f"{kind}({type(spec).__name__}): instance is indexed over a "
+                "different R than this plan")
 
     def _build_filter(self, engine: JoinEngine):
         spec, opts = self._filter_spec
@@ -295,13 +353,50 @@ class JoinPlan:
         return as_filter(spec, tau=tau, xdt_mode=xdt_mode,
                          fpr_tolerance=fpr_tolerance)
 
-    def _check_verify(self) -> None:
+    def _build_verify(self, engine: JoinEngine, base):
+        """(route, label) of the verify spec: "exact", a VERIFY_BACKENDS
+        name (or its pinned instance), or a Searcher object."""
         spec, params = self._verify_spec
-        if spec not in ("auto", "exact"):
-            raise _not_ported("verify", spec, ["'auto'", "'exact'"])
+        base_is_naive = isinstance(base, NaiveJoin)
+        if spec == "auto":
+            if params:
+                raise ValueError("verify('auto') takes no params — name the "
+                                 "backend to tune it")
+            if base_is_naive:
+                return "exact", "exact"
+            return base, getattr(base, "name", type(base).__name__)
+        if spec == "exact":
+            if not base_is_naive:
+                raise ValueError(
+                    "verify('exact') is the engine's brute-force sweep and "
+                    "only composes with search('naive'); with "
+                    f"search({getattr(base, 'name', '?')!r}) use "
+                    "verify('auto') (the base's own candidates) or name an "
+                    "approximate backend")
+            if params:
+                raise ValueError("verify('exact') takes no params — it has "
+                                 "no index to tune")
+            return "exact", "exact"
+        if isinstance(spec, str):
+            if spec not in VERIFY_BACKENDS:
+                raise _not_ported("verify", spec, [
+                    "'auto'", "'exact'", "'lsh'", "'ivfpq'", "Searcher"])
+            # build the index now, so its cost lands at build time. With
+            # params the plan PINS the built instance; without, the NAME
+            # stays the route and a later `engine.verifier(name, **p)`
+            # retune takes effect
+            v = engine.verifier(spec, **params)
+            return (v if params else spec), spec
+        if not (hasattr(spec, "candidates") or hasattr(spec, "query_counts")):
+            raise ValueError(
+                f"verify({type(spec).__name__}): instance must expose "
+                "candidates(Q) -> int32 [q, C] (device verification) or "
+                "query_counts(Q, eps) -> int32 [q] (host verification)")
         if params:
-            raise ValueError(f"verify({spec!r}) takes no params — the exact "
-                             "sweep has no index to tune")
+            raise ValueError(f"verify(<instance>, **{sorted(params)}): params "
+                             "only apply to by-name backends")
+        self._check_instance("verify", spec)
+        return spec, getattr(spec, "name", type(spec).__name__)
 
     # -------------------------------------------------------------- build
     def build(self) -> "JoinPlan":
@@ -312,8 +407,10 @@ class JoinPlan:
         if self.metric not in ("cosine", "l2"):
             raise ValueError(f"metric={self.metric!r}: expected 'cosine' or "
                              "'l2'")
-        self._check_verify()
         _check_block(self._exec["block"])
+        if self._exec["probe"] not in PROBE_MODES:
+            raise ValueError(f"on(probe={self._exec['probe']!r}): expected "
+                             f"one of {list(PROBE_MODES)}")
         engine = self._exec["engine"]
         spec = self._search_spec[0]
         if engine is None and isinstance(spec, NaiveJoin):
@@ -331,7 +428,14 @@ class JoinPlan:
                                 backend=self._exec["backend"])
         base = self._build_base(engine)
         filt = self._build_filter(engine)
-        self._built = _BuiltPlan(engine=engine, base=base, filter=filt)
+        route, label = self._build_verify(engine, base)
+        # resolve the probe placement now: probe='device' with a route
+        # that has no device probe fails HERE, and the table upload lands
+        # at build time, not in batch 0
+        placed = engine.device_probe_for(route, self._exec["probe"])
+        self._built = _BuiltPlan(engine=engine, base=base, filter=filt,
+                                 verify_route=route, verify_label=label,
+                                 placed_probe=placed)
         self._device_filter_cache.clear()
         return self
 
@@ -354,19 +458,37 @@ class JoinPlan:
             return None                     # engine treats None as all-pos
         return np.asarray(f.verdicts(Q, eps), bool)
 
+    def _route_searcher(self):
+        """The searcher behind the verify route (None for the exact sweep;
+        the engine-cached instance for a by-name route)."""
+        route = self._built.verify_route
+        if route == "exact":
+            return None
+        if isinstance(route, str):
+            return self._built.engine.verifier(route)
+        return route
+
+    def _overflow_frac(self) -> Optional[float]:
+        """The verify route's build-time candidate-loss budget
+        (`LSHJoin.overflow_frac`), or None when the route has none."""
+        frac = getattr(self._route_searcher(), "overflow_frac", None)
+        return None if frac is None else float(frac)
+
     def _wrap(self, res, n: int, eps: float, t_host: float) -> JoinResult:
         st = self._built
         return JoinResult(
             counts=res.counts, n_queries=n, n_searched=res.n_searched,
             t_filter=res.t_filter + t_host, t_search=res.t_search,
             meta={"eps": eps, "tau": getattr(st.filter, "tau", 0),
-                  "base": st.base.name, "filter": _filter_label(st.filter),
-                  "engine": True, "verify": res.verify,
+                  "base": getattr(st.base, "name", "?"),
+                  "filter": _filter_label(st.filter),
+                  "engine": True, "verify": res.verify, "probe": res.probe,
+                  "overflow_frac": self._overflow_frac(),
                   "device": str(st.engine.device)})
 
     def run(self, Q: np.ndarray, eps: float) -> JoinResult:
         """One synchronous join pass: device filter (or host verdicts) ->
-        count read -> compact -> exact verify through the engine."""
+        count read -> compact -> (probe ->) verify through the engine."""
         self.build()
         Q = np.asarray(Q, np.float32)
         t0 = time.perf_counter()
@@ -375,7 +497,8 @@ class JoinPlan:
         t_host = time.perf_counter() - t0
         res = self._built.engine.filtered_join(
             Q, float(eps), predict=predict, threshold=threshold,
-            verdicts=verdicts, block=self._exec["block"])
+            verdicts=verdicts, block=self._exec["block"],
+            verify=self._built.verify_route, probe=self._exec["probe"])
         return self._wrap(res, len(Q), eps, t_host)
 
     def stream(self, batches: Iterable[np.ndarray], eps: float, *,
@@ -406,10 +529,9 @@ class JoinPlan:
 
         fspec, fopts = self._filter_spec
         sspec, sparams = self._search_spec
-        vspec, _ = self._verify_spec
-
-        def name(s):
-            return s if isinstance(s, str) else type(s).__name__
+        vspec, vparams = self._verify_spec
+        name = _spec_name
+        placed = st.placed_probe
         return {
             "metric": self.metric,
             "n_index": int(len(self._R)),
@@ -418,14 +540,39 @@ class JoinPlan:
                        "resolved": _filter_label(st.filter),
                        "tau": getattr(st.filter, "tau", 0),
                        "opts": scalars(fopts)},
-            "search": {"spec": name(sspec), "resolved": st.base.name,
-                       "exact": True, "params": scalars(sparams)},
-            "verify": {"spec": name(vspec), "resolved": "exact"},
+            "search": {"spec": name(sspec),
+                       "resolved": getattr(st.base, "name",
+                                           type(st.base).__name__),
+                       "exact": bool(getattr(st.base, "exact", False)),
+                       # False when a named verify backend bypasses the
+                       # base's own verification
+                       "active": (st.verify_route is st.base
+                                  or (st.verify_route == "exact"
+                                      and isinstance(st.base, NaiveJoin))),
+                       "params": scalars(sparams)},
+            "verify": {"spec": name(vspec), "resolved": st.verify_label,
+                       "params": scalars(vparams),
+                       "overflow_frac": self._overflow_frac()},
             "exec": {"backend": st.engine.backend,
                      "block": self._exec["block"],
                      "device": str(st.engine.device),
                      "engine_shared": self._exec["engine"] is not None,
-                     "r_bytes": int(st.engine.nr_padded * st.engine.dim * 4)},
+                     "r_bytes": int(st.engine.nr_padded * st.engine.dim * 4),
+                     # where the verify route's index probe runs: "device"
+                     # with its table bytes and candidate width, "host"
+                     # for probing routes without a device probe, None for
+                     # the exact sweep (no probe stage)
+                     "probe": {
+                         "mode": self._exec["probe"],
+                         "resolved": (
+                             "device" if placed is not None
+                             else ("host" if self._route_searcher()
+                                   is not None else None)),
+                         "table_bytes": (None if placed is None else
+                                         placed.table_bytes_per_device),
+                         "cand_width": (None if placed is None else
+                                        placed.cand_width),
+                         "overflow_frac": self._overflow_frac()}},
         }
 
     @property
@@ -455,7 +602,8 @@ class PlanSession:
         self._t_host = time.perf_counter() - t0  # one-time XDT selection
         self._sess = plan._built.engine.stream_session(
             eps, predict=self._predict, threshold=self._threshold,
-            depth=depth, block=plan._exec["block"])
+            verify=plan._built.verify_route, depth=depth,
+            block=plan._exec["block"], probe=plan._exec["probe"])
         self._pending: list[tuple[int, float]] = []  # FIFO (n, host cost)
 
     def _emit(self, results) -> list[JoinResult]:

@@ -27,6 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+def check_indices() -> bool:
+    """Whether the kernel wrappers check the indices they pass on (probe
+    bucket ids, candidate ids) before a launch: set REPRO_TORCH_CHECK_INDICES=1
+    (the tests do). The CUDA kernels trust their inputs, and the check
+    reads a device flag back, a host sync, so it is off by default and
+    never on the serve path."""
+    return os.environ.get("REPRO_TORCH_CHECK_INDICES") == "1"
+
+
 def build_dir() -> Path:
     """Where the shared libraries go: `REPRO_TORCH_BUILD`, else
     `build/kernels/` at the root of the checkout."""

@@ -8,13 +8,14 @@ Backends:
     reference of the engine tests.
 
 No padding happens here: the kernels take any nq/nr/m and mask R rows
-past `nr_valid` themselves.
+past `nr_valid` themselves, and the probe kernels any row count.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import fused_mlp, ref
+from repro_torch.kernels import adc_rank as adc_rank_kernel
+from repro_torch.kernels import fused_mlp, lsh_gather, ref
 from repro_torch.kernels import range_count as range_count_kernel
 
 BACKENDS = ("auto", "ref")
@@ -52,3 +53,24 @@ def mlp_forward(params, x: torch.Tensor, *, backend: str = "auto") -> torch.Tens
     if check_backend(backend) == "ref":
         return ref.mlp_forward(params, x)
     return fused_mlp.mlp_forward(params, x)
+
+
+def lsh_bucket_gather(tables: torch.Tensor, pb: torch.Tensor, *,
+                      backend: str = "auto") -> torch.Tensor:
+    """LSH member-table gather + multiprobe dedup, int32 [q, l*p*cap];
+    tables int32 [l, B, cap], pb int32 [q, l, p]. Integers only: every
+    backend gives the same ids."""
+    if check_backend(backend) == "ref":
+        return ref.lsh_bucket_gather(tables, pb)
+    return lsh_gather.lsh_bucket_gather(tables, pb)
+
+
+def adc_rank(q: torch.Tensor, codebooks: torch.Tensor, cand: torch.Tensor,
+             codes: torch.Tensor, *, n_cand: int,
+             backend: str = "auto") -> torch.Tensor:
+    """IVF-PQ ADC ranking, the n_cand best candidate ids int32 [b, n_cand]
+    (`kernels/adc_rank.py`). Every backend follows one arithmetic order
+    and a stable selection, so all give the same ids in the same order."""
+    if check_backend(backend) == "ref":
+        return ref.adc_rank(q, codebooks, cand, codes, n_cand=n_cand)
+    return adc_rank_kernel.adc_rank(q, codebooks, cand, codes, n_cand=n_cand)

@@ -1,5 +1,7 @@
 """Plain unblocked oracles for every kernel in this package, plus the
-boundary-tie rule that count comparisons are held to.
+boundary-tie rule that count comparisons are held to. The ADC ranking's
+oracle is `kernels/adc_rank.py::adc_rank_chain`, re-exported here as
+`adc_rank`.
 
 Clarity over speed: these are the references the tests and
 `chip_smoke.py` compare against, never a path the join runs.
@@ -8,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.adc_rank import adc_rank_chain as adc_rank
 
 
 def pair_distances(q: torch.Tensor, r: torch.Tensor, metric: str) -> torch.Tensor:
@@ -49,6 +53,23 @@ def mlp_forward(params, x: torch.Tensor) -> torch.Tensor:
     return h[:, 0]
 
 
+def lsh_bucket_gather(tables: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """cand[q, t, j*cap:(j+1)*cap] = tables[t, pb[q, t, j]], a probe whose
+    bucket id repeats an earlier probe of the same (q, t) blanked to -1.
+    int32 [q, l*p*cap]; one probe at a time."""
+    q, l, p = pb.shape
+    rows = torch.arange(l, device=pb.device)[None, :]
+    blocks = []
+    for j in range(p):
+        blk = tables[rows, pb[:, :, j].long()]              # [q, l, cap]
+        dup = torch.zeros((q, l), dtype=torch.bool, device=pb.device)
+        for jp in range(j):
+            dup |= pb[:, :, jp] == pb[:, :, j]
+        blocks.append(torch.where(dup[..., None], torch.full_like(blk, -1),
+                                  blk))
+    return torch.stack(blocks, dim=2).reshape(q, -1)
+
+
 # ------------------------------------------------------- boundary ties
 def tie_tolerance(dim: int) -> float:
     """Dot-product window around eps inside which an f32 count may differ
@@ -72,13 +93,18 @@ def _tensor(x, device=None) -> torch.Tensor:
 
 
 def count_mismatches(a, b, q, r, eps_grid, metric: str, *,
-                     nr_valid: int | None = None) -> dict:
+                     nr_valid: int | None = None,
+                     at_most: bool = False) -> dict:
     """Hold two neighbour-count tables against each other up to boundary
     ties. a, b: int [nq, m] counts of q's neighbours in r[:nr_valid]
     within eps_grid [m]. A mismatch at (i, j) is accepted only if
     |a - b| is at most the number of rows whose float64 dot with q_i lies
     within `tie_tolerance` of the dot at eps_j. Float64 dots are computed
     only for the rows that mismatch, on q's device.
+
+    `at_most=True` holds an approximate count a (found among candidates)
+    against the exact b: a below b is no mismatch, a above b must be
+    explained by ties.
 
     Returns {"ok", "n_mismatch", "max_abs_diff", "n_unexplained"}."""
     q = _tensor(q)
@@ -88,7 +114,7 @@ def count_mismatches(a, b, q, r, eps_grid, metric: str, *,
     r = _tensor(r, dev)
     eps = _tensor(eps_grid, dev).reshape(-1)
     nrv = r.shape[0] if nr_valid is None else int(nr_valid)
-    diff = (a - b).abs()
+    diff = (a - b).clamp(min=0) if at_most else (a - b).abs()
     pairs = torch.nonzero(diff > 0)
     out = {"n_mismatch": int(pairs.shape[0]),
            "max_abs_diff": int(diff.max()) if diff.numel() else 0,

@@ -1,12 +1,14 @@
-"""Shared small utilities: device resolution, the disk cache, memoized
-device predict fns, and the float32 precision policy."""
+"""Shared small utilities: device resolution, host<->device copies, the
+disk cache, memoized device predict fns, and the float32 precision
+policy."""
 from __future__ import annotations
 
 import hashlib
 import json
 import os
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 CACHE_DIR = os.environ.get(
@@ -38,6 +40,31 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     if dev.type == "cuda":
         set_fp32_precision()
     return dev
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device` (a copy). On the card the copy goes
+    through pinned memory and does not block the host."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+def start_host_copy(t: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Start the device->host copy of `t`; the returned callable waits for
+    it and yields the numpy array."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+    return wait
 
 
 def set_fp32_precision() -> None:

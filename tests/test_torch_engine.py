@@ -185,8 +185,8 @@ def test_bucket_size_matches_jax():
 def test_unported_verify_raises(world):
     R, Q, _ = world
     eng = JoinEngine(R, "l2", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        eng.filtered_join(Q, EPS, verify="lsh")
+    with pytest.raises(ValueError, match="verify='grid'"):
+        eng.filtered_join(Q, EPS, verify="grid")
     for bad in (0, -4, 2.5, True):
         with pytest.raises(ValueError, match="block"):
             eng.filtered_join(Q, EPS, block=bad)

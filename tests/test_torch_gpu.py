@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
-plain PyTorch version at small shapes, the launch counters, and one
-filtered join through the engine. Marked `gpu`; every test skips with a
+plain PyTorch version at small shapes (the probe kernels also at the
+main path's), the launch counters, and filtered joins through the engine
+on the exact and the device-probe routes. Marked `gpu`; every test skips with a
 reason where no CUDA device is present (decided inside the fixture, not
 at import). Run on the card with
 
@@ -11,16 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_mlp, range_count
+from repro_torch.kernels import adc_rank, fused_mlp, lsh_gather, range_count
 from repro_torch.kernels.ref import count_mismatches
 
 pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    monkeypatch.setenv("REPRO_TORCH_CHECK_INDICES", "1")
     return torch.device("cuda")
 
 
@@ -83,3 +85,132 @@ def test_engine_filtered_join_on_card(cuda):
     res_ok = count_mismatches(res.counts[verdicts], want[verdicts],
                               Q[verdicts], R, [0.3], "cosine")
     assert res_ok["ok"], res_ok
+
+
+@pytest.mark.parametrize("q,l,B,cap,p", [
+    (37, 5, 48, 7, 4),                  # small, nothing divides a block
+    (4096, 10, 131072, 12, 4),          # the main path's tables
+    (640, 10, 4096, 12, 32),            # re-bucketed width p * fanout
+])
+def test_lsh_gather_kernel_vs_plain(cuda, q, l, B, cap, p):
+    g = torch.Generator().manual_seed(q + B)
+    tables = torch.randint(-1, 120000, (l, B, cap), generator=g,
+                           dtype=torch.int32)
+    tables[tables % 3 == 0] = -1                  # empty slots
+    pb = torch.randint(0, B, (q, l, p), generator=g, dtype=torch.int32)
+    pb[..., -1] = pb[..., 0]                      # repeated identity probe
+    tables, pb = tables.to(cuda), pb.to(cuda)
+    before = lsh_gather.KERNEL.launches
+    got = lsh_gather.lsh_bucket_gather(tables, pb)
+    want = lsh_gather.lsh_bucket_gather_plain(tables, pb)
+    torch.cuda.synchronize()
+    assert lsh_gather.KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_probe_kernel_wrappers_check_indices(cuda):
+    """With REPRO_TORCH_CHECK_INDICES=1 the wrappers refuse ids the
+    kernels would read out of bounds."""
+    tables = torch.full((2, 8, 3), -1, dtype=torch.int32, device=cuda)
+    pb = torch.zeros((4, 2, 2), dtype=torch.int32, device=cuda)
+    pb[1, 1, 1] = 8
+    with pytest.raises(IndexError, match="bucket ids"):
+        lsh_gather.lsh_bucket_gather(tables, pb)
+    q = torch.zeros((2, 32), device=cuda)
+    cbs = torch.zeros((4, 256, 8), device=cuda)
+    codes = torch.zeros((10, 4), dtype=torch.uint8, device=cuda)
+    cand = torch.tensor([[1, 10, -1], [0, 2, 3]], dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(IndexError, match="candidate ids"):
+        adc_rank.adc_rank(q, cbs, cand, codes, n_cand=2)
+
+
+@pytest.mark.parametrize("b,C,n,m,seg,n_cand,integer,live", [
+    (16, 64, 300, 4, 8, 32, False, 0.9),
+    (33, 500, 300, 4, 8, 100, True, 0.9),     # many ties: the tie order
+    (9, 700, 300, 4, 8, 400, False, 0.3),     # fewer live lanes than n_cand
+    (64, 85100, 120000, 25, 8, 1000, False, 0.3),   # the main path's pool
+])
+def test_adc_rank_kernel_vs_plain(cuda, b, C, n, m, seg, n_cand, integer,
+                                  live):
+    g = torch.Generator().manual_seed(b + C)
+    if integer:
+        q = torch.randint(-2, 3, (b, m * seg), generator=g).float()
+        cbs = torch.randint(-2, 3, (m, 256, seg), generator=g).float()
+    else:
+        q = torch.randn(b, m * seg, generator=g)
+        cbs = torch.randn(m, 256, seg, generator=g)
+    codes = torch.randint(0, 256, (n, m), generator=g, dtype=torch.uint8)
+    cand = torch.randint(0, n, (b, C), generator=g, dtype=torch.int32)
+    cand[torch.rand(b, C, generator=g) > live] = -1
+    cand[:, 2] = cand[:, 1]                       # duplicate ids
+    cand[0] = -1                                  # an all -1 row
+    args = [t.to(cuda) for t in (q, cbs, cand, codes)]
+    before = adc_rank.KERNEL.launches
+    got = adc_rank.adc_rank(*args, n_cand=n_cand)
+    want = adc_rank.adc_rank_plain(*args, n_cand=n_cand)
+    torch.cuda.synchronize()
+    assert adc_rank.KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert (got[0] == -1).all()
+
+
+@pytest.mark.parametrize("verify", ["lsh", "ivfpq"])
+def test_engine_device_probe_on_card(cuda, verify):
+    from repro_torch.core import JoinEngine
+    rng = np.random.default_rng(1)
+    R = rng.normal(size=(3000, 64)).astype(np.float32)
+    R /= np.linalg.norm(R, axis=1, keepdims=True)
+    Q = R[:300] + 0.05 * rng.normal(size=(300, 64)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+    verdicts = rng.random(300) > 0.5
+    eng = JoinEngine(R, "cosine", device="cuda")
+    eng.verifier(verify, **({"C": 30, "m": 8, "n_probe": 6}
+                            if verify == "ivfpq" else {}))
+    launches = (lsh_gather.KERNEL.launches, adc_rank.KERNEL.launches)
+    dev = eng.filtered_join(Q, 0.3, verdicts=verdicts, verify=verify,
+                            probe="device")
+    host = eng.filtered_join(Q, 0.3, verdicts=verdicts, verify=verify,
+                             probe="host")
+    kernel = lsh_gather if verify == "lsh" else adc_rank
+    assert kernel.KERNEL.launches > launches[verify == "ivfpq"]
+    np.testing.assert_array_equal(dev.counts, host.counts)
+    true = eng.range_count(Q, 0.3)
+    assert (dev.counts[~verdicts] == 0).all()
+    ok = count_mismatches(dev.counts[verdicts], true[verdicts], Q[verdicts],
+                          R, [0.3], "cosine", at_most=True)
+    assert ok["ok"], ok
+
+
+def test_probe_host_entries_default_to_the_card(cuda):
+    """Without device=, the probe's host entries and an index's host probe
+    run on the card (launching the kernels) and equal the CPU route."""
+    from repro_torch.core import probe
+    from repro_torch.core.joins import IVFPQJoin, LSHJoin
+    rng = np.random.default_rng(3)
+    R = rng.normal(size=(3000, 64)).astype(np.float32)
+    R /= np.linalg.norm(R, axis=1, keepdims=True)
+    Q = R[:200]
+    ivf = IVFPQJoin(R, "cosine", C=30, m=8, n_probe=6, n_candidates=300)
+    assert ivf.device.type == "cuda"
+    before = adc_rank.KERNEL.launches
+    got = probe.ivfpq_candidates(Q, ivf.centroids, ivf.lists, ivf.codes,
+                                 ivf.codebooks, n_probe=6, n_cand=300)
+    assert adc_rank.KERNEL.launches == before + 1
+    want = probe.ivfpq_candidates(Q, ivf.centroids, ivf.lists, ivf.codes,
+                                  ivf.codebooks, n_probe=6, n_cand=300,
+                                  device="cpu")
+    assert got.shape == want.shape == (200, 300)
+    lsh = LSHJoin(R, "cosine", k=8, l=4)
+    before = lsh_gather.KERNEL.launches
+    cand = lsh.candidates(Q)
+    assert lsh_gather.KERNEL.launches == before + 1
+    kw = dict(metric="cosine", W=lsh.W, n_probes=lsh.n_probes,
+              n_buckets=lsh.n_buckets)
+    h = Q.astype(np.float64) @ lsh.proj.reshape(-1, 64).T.astype(np.float64)
+    clean = (np.abs(h) > 1e-5).all(axis=1)    # no sign bit near its edge
+    np.testing.assert_array_equal(
+        probe.lsh_probe_buckets(Q, lsh.proj, lsh.bias, lsh.salt, **kw)[clean],
+        probe.lsh_probe_buckets(Q, lsh.proj, lsh.bias, lsh.salt,
+                                device="cpu", **kw)[clean])
+    assert cand.shape == (200, 4 * lsh.n_probes * lsh.cap)

@@ -50,6 +50,9 @@ def test_import_repro_torch_with_jax_blocked():
             "import repro_torch, repro_torch.core, repro_torch.data\n"
             "import repro_torch.models, repro_torch.kernels.ops\n"
             "import repro_torch.kernels.build\n"
+            "import repro_torch.kernels.lsh_gather, repro_torch.kernels.adc_rank\n"
+            "import repro_torch.core.probe, repro_torch.core.joins.common\n"
+            "import repro_torch.core.joins.lsh, repro_torch.core.joins.ivfpq\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

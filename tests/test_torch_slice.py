@@ -111,9 +111,9 @@ def test_stream_and_build_xjoin_agree_with_run(plans):
 
 
 @pytest.mark.parametrize("build", [
-    lambda p: p.search("lsh"),
+    lambda p: p.search("grid"),
     lambda p: p.filter("lsbf"),
-    lambda p: p.verify("ivfpq"),
+    lambda p: p.verify("kmeanstree"),
 ])
 def test_unported_plan_values_raise(plans, build):
     R, _, spec, _, _ = plans
