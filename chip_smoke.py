@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (`src/repro_torch`): XJoin end to end
 on one CUDA card at the paper's data scale, then Xling in front of LSH
-and IVF-PQ with the index probe on the card.
+and IVF-PQ with the index probe on the card, then TinyLlama-1.1B prefill
+and greedy decode at full width.
 
     python3 chip_smoke.py [--epochs 3] [--seed 0]
 
 Phases, one JSON line each:
   0 device  — the card (`nvidia-smi` name and power limit), torch/CUDA
-              versions, and the nvcc build of all four kernels from
+              versions, and the nvcc build of all five kernels from
               `csrc/` (one nvcc per source, started together).
   1 kernels — each hand-written kernel against its plain PyTorch version
               on the card at the main path's shapes (the range count also
@@ -20,7 +21,17 @@ Phases, one JSON line each:
               operations over 67 TFLOP/s, the larger), the plain
               version's time and the nearest PyTorch call as a partial
               yardstick (cuBLAS `q @ r.T`; the gather without the dedup;
-              `torch.topk` over precomputed ADC values).
+              `torch.topk` over precomputed ADC values). The attention
+              kernel at TinyLlama's layer shapes (H 32, K 4, D 64, bf16,
+              unit-normal inputs) for both request batches of phase lm
+              (S = T = 4096 and 4000), with keys masked by kv_valid (4000
+              of 4096), and at B 1 x S 32 768, the prefill_32k length; held
+              to the plain version row by row (max |kernel - plain| over
+              a row of D within 2^-6 of the row's max |plain|, two bf16
+              steps) and to a max abs error of 1e-2; its bound is the
+              causal half's bf16 operations over 989 TFLOP/s vs the q, k,
+              v, out bytes; its yardstick `scaled_dot_product_attention`
+              (is_causal, K/V heads repeated), which the port never calls.
   2 fit     — glove stand-in, n = 150 000 (R 120 000 x 200, S 30 000):
               `JoinPlan(R).filter("xling", tau=50, xdt="fpr",
               estimator="rmi", epochs=E).search("naive")`; the ground-truth
@@ -44,10 +55,28 @@ Phases, one JSON line each:
               equal those of the same route run with the plain versions
               of both probe kernels, and never above the exact counts
               beyond boundary ties; then a profiled second pass.
+  5 lm      — `tinyllama_1_1b` CONFIG at full width (22 layers, d 2048,
+              32/4 heads, bf16), weights drawn from --seed on the card,
+              `build_model(backend="auto")`. Two request batches of B 8:
+              prompts of S 4096 and S 4000 (a ragged last query and kv
+              tile, keys not padded); each is prefilled
+              (a warm-up prefill and two decode steps first), then 16
+              greedy decode steps, each timed to its sync, run into
+              a cache of S + 16 positions (`cache_for_decode`). Prefill ms
+              (time to first token), prompt tokens/s, decode ms a step
+              and tokens/s, peak memory, `reduced`; exactly 22 attention
+              launches a prefill and none while decoding. Checks: the
+              kernel route against `backend="ref"` at B 1 x S 4096 and the
+              first decode step against prefill(S + 1), both within 2e-2
+              of max |logit| (the JAX package's prefill/decode bound), the
+              head product taken in f32 for these checks so that the
+              bound sits above the logits' own bf16 rounding; every logit
+              finite. Then one profiled prefill and decode.
 Then the card's `nvidia-smi` line, the kernels summary line, and
 {"ok": true, "device": {...}} as the last line. Every kernel counter is
-zeroed just before phase 2 and read right after phase 3, and zeroed
-again just before each route of phase 4 and read right after it: the
+zeroed just before phase 2 and read right after phase 3, zeroed again
+just before each route of phase 4 and read right after it, and just
+before phase 5's timed requests and read right after them: the
 launches reported are those of the main paths only. Any failure raises
 and exits non-zero; without a CUDA device it exits 2 before printing a
 result.
@@ -55,6 +84,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -67,6 +97,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,9 +105,10 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -255,6 +287,236 @@ def adc_rank_case(q, cbs, cand, codes, n_cand: int, reps: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def causal_pairs(S: int, kv_valid: int, causal: bool) -> int:
+    """(query, key) pairs the attention must score: each query sees the
+    keys below kv_valid, and under causal masking none after itself."""
+    if not causal:
+        return S * kv_valid
+    n = min(S, kv_valid)                 # queries 0..n-1 see i + 1 keys
+    return n * (n + 1) // 2 + (S - n) * kv_valid
+
+
+#: kernel vs plain, per output row (b, s, h): max |kernel - plain| over the
+#: row's D values within this share of the row's max |plain|. Both round
+#: p to bf16 at the same kv tiles; they differ by where the bf16 output
+#: rounds (one step, <= 2^-7 of the row's max) and by the SFU's exp
+#: flipping a p's rounding (<= 2^-8 of it). An output of a long row is
+#: small (std ~ sqrt(e/n) for n keys), so the row scale, not an absolute
+#: bound, is what a dropped kv tile (~8/sqrt(e n) of it: 0.027 at n 32 768)
+#: or a lost row would break.
+FLASH_ROW_REL = 2.0 ** -6
+
+
+def row_rel_err(got, want) -> float:
+    """max over rows of max |got - want| / max |want| along the last axis."""
+    got, want = got.float(), want.float()
+    num = (got - want).abs().amax(dim=-1)
+    den = want.abs().amax(dim=-1).clamp_min(1e-30)
+    return float((num / den).max())
+
+
+def flash_case(B: int, S: int, T: int, kv_valid: int, cfg, gen,
+               reps: int) -> dict:
+    """Kernel vs plain version at one prefill layer's shapes (unit-normal
+    bf16 q, k, v; keys at or past kv_valid masked); raises beyond
+    FLASH_ROW_REL row by row or a max abs error of 1e-2. Yardstick:
+    `scaled_dot_product_attention` with is_causal on the live keys, K/V
+    heads repeated to H."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    got = fa.flash_attention(q, k, v, causal=True, kv_valid=kv_valid)
+    want = fa.flash_attention_plain(q, k, v, causal=True, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row_err = row_rel_err(got, want)
+    assert torch.isfinite(got).all() and err <= 1e-2, \
+        f"flash_attention B {B} S {S}: max abs error {err} > 1e-2"
+    assert row_err <= FLASH_ROW_REL, \
+        f"flash_attention B {B} S {S} T {T}: row error {row_err} > 2^-6"
+    pairs = causal_pairs(S, kv_valid, True)
+    bound_ms, bound_by = bound(2 * (2 * B * S * H * D + 2 * B * kv_valid * K * D),
+                               4.0 * B * H * D * pairs, BF16_FLOP_PER_S)
+    qh = q.transpose(1, 2)
+    kh, vh = (x[:, :kv_valid].repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for x in (k, v))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    del got, want, lib
+
+    def kernel():
+        return fa.flash_attention(q, k, v, causal=True, kv_valid=kv_valid)
+    dev_ms = device_ms(kernel, reps, "flash_fwd_bf16_kernel")
+    return {"shape": {"B": B, "S": S, "T": T, "kv_valid": kv_valid, "H": H,
+                      "K": K, "D": D, "dtype": "bfloat16", "causal": True},
+            "max_abs_err": err, "max_row_rel_err": row_err,
+            "tolerance": "per row (b, s, h): max |kernel - plain| <= 2^-6 "
+                         "max |plain|; and max |kernel - plain| <= 1e-2",
+            "ms": cuda_ms(kernel, reps), "device_ms": dev_ms,
+            "device_tflops": 4.0 * B * H * D * pairs / 1e9 / dev_ms,
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, kv_valid=kv_valid), 1, warmup=0),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), reps),
+            "library": "F.scaled_dot_product_attention(is_causal=True) on "
+                       "[B,H,S,D] views, K/V heads repeated to H (a yardstick; "
+                       "the port never calls it)",
+            "library_max_abs_err_vs_plain": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def f32_head(*models):
+    """The models' head product in f32 (the final hidden state widened)
+    while the model-level checks run, so that their 2e-2 bound sits above
+    the logits' own bf16 rounding. The served path keeps bf16 logits, as
+    the JAX package does."""
+    for m in models:
+        head = m.emb.T if m.cfg.tie_embeddings else m.head
+        m._logits = lambda x, head=head: x.float() @ head.float()
+    try:
+        yield
+    finally:
+        for m in models:
+            del m._logits
+
+
+def lm_phase(seed: int) -> int:
+    """Phase 5 (module docstring). Returns the attention kernel's launches
+    on the main path (both requests' prefills and decodes)."""
+    import torch
+    from repro_torch.archs import Model, build_model, make_batch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("tinyllama_1_1b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", backend="auto", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, n_dec = 8, 16
+    prompts = [make_batch(cfg, "prefill", B, S, seed=seed + i,
+                          device="cuda")["tokens"]
+               for i, S in enumerate((4096, 4000))]
+    for toks in prompts:                # warm-up of both paths, untimed
+        logits, cache = model.prefill({"tokens": toks})
+        cache = model.cache_for_decode(cache, toks.shape[1] + 2)
+        nxt = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+        for i in range(2):
+            model.decode_step(cache, nxt, toks.shape[1] + i)
+        del cache
+    torch.cuda.synchronize()
+
+    def sync_s(t):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    # ---- main path: counter zeroed, both requests driven, counter read ----
+    fa.KERNEL.launches = 0
+    runs = []
+    for toks in prompts:
+        S = toks.shape[1]
+        at = fa.KERNEL.launches
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": toks})
+        nxt = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+        prefill_s = sync_s(t0)
+        prefill_launches = fa.KERNEL.launches - at
+        t0 = time.perf_counter()
+        cache = model.cache_for_decode(cache, S + n_dec)
+        grow_s = sync_s(t0)
+        at = fa.KERNEL.launches
+        tok, steps, step_s = nxt, [logits], []
+        for i in range(n_dec):
+            t0 = time.perf_counter()
+            step_logits, cache = model.decode_step(cache, tok, S + i)
+            tok = step_logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            step_s.append(sync_s(t0))
+            steps.append(step_logits)
+        runs.append(dict(S=S, toks=toks, nxt=nxt, steps=steps,
+                         prefill_s=prefill_s, grow_s=grow_s, step_s=step_s,
+                         prefill_launches=prefill_launches,
+                         decode_launches=fa.KERNEL.launches - at))
+        del cache
+    launches = fa.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    # ---- main path over: the checks below launch the kernel uncounted ----
+    for r in runs:
+        assert r["prefill_launches"] == cfg.n_layers, r["prefill_launches"]
+        assert r["decode_launches"] == 0, r["decode_launches"]
+        assert all(bool(torch.isfinite(x).all()) for x in r["steps"]), \
+            "a logit is not finite"
+    ref = Model(cfg, model.param_tree(), backend="ref")
+    with f32_head(model, ref):
+        for r in runs:
+            S = r["S"]
+            _, cache = model.prefill({"tokens": r["toks"]})
+            cache = model.cache_for_decode(cache, S + 1)
+            first, _ = model.decode_step(cache, r["nxt"], S)
+            full, _ = model.prefill(
+                {"tokens": torch.cat([r["toks"], r["nxt"]], 1)})
+            r["decode_vs_prefill"] = float((first - full).abs().max()
+                                           / full.abs().max())
+            assert r["decode_vs_prefill"] < 2e-2, r["decode_vs_prefill"]
+            del cache
+        one = {"tokens": prompts[0][:1]}
+        got, _ = model.prefill(one)
+        want, _ = ref.prefill(one)
+    assert got.dtype == torch.float32
+    kernel_vs_ref = float((got - want).abs().max() / want.abs().max())
+    assert kernel_vs_ref < 2e-2, kernel_vs_ref
+    del ref, got, want
+    torch.cuda.empty_cache()
+
+    # one more prefill and a decode step under the profiler
+    toks = prompts[0]
+    prof_prefill = profile_call(lambda: model.prefill({"tokens": toks}), 10)
+    _, cache = model.prefill({"tokens": toks})
+    cache = model.cache_for_decode(cache, toks.shape[1] + 1)
+    prof_decode = profile_call(lambda: model.decode_step(
+        cache, runs[0]["nxt"], toks.shape[1]), 10)
+    # the profiler's own host cost inflates its wall: the idle share of a
+    # step is also read against the unprofiled step time
+    step_ms = 1e3 * statistics.median(runs[0]["step_s"])
+    prof_decode["device_idle_share_of_timed_step"] = \
+        1 - prof_decode["device_busy_ms"] / step_ms
+    del cache
+    emit("lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.param_dtype,
+         n_params=sum(p.numel() for p in model.parameters()),
+         weights=f"random, torch.Generator seed {seed}", init_s=init_s,
+         backend="auto",
+         reduced={"seq": "4096 and 4000 (prefill_32k cell: 32 768)",
+                  "batch": "8 (prefill_32k cell: 32)",
+                  "decode": f"{n_dec} greedy steps a request",
+                  "weights": "random from --seed: no TinyLlama checkpoint "
+                             "in the repository"},
+         requests=[{
+             "batch": B, "prompt_len": r["S"],
+             "prefill_ms": 1e3 * r["prefill_s"],
+             "prompt_tokens_per_s": B * r["S"] / r["prefill_s"],
+             "cache_grow_ms": 1e3 * r["grow_s"],
+             "decode_steps": n_dec,
+             "decode_ms_per_step": 1e3 * sum(r["step_s"]) / n_dec,
+             "decode_ms_steps": [1e3 * x for x in r["step_s"]],
+             "decode_tokens_per_s": B * n_dec / sum(r["step_s"]),
+             "flash_attention_launches": {"prefill": r["prefill_launches"],
+                                          "decode": r["decode_launches"]},
+             "decode_vs_prefill_rel": r["decode_vs_prefill"],
+             "greedy_tokens_row0": [int(x[0].argmax()) for x in r["steps"]],
+         } for r in runs],
+         kernel_vs_ref_rel_B1_S4096=kernel_vs_ref,
+         tolerance="max |a - b| / max |b| < 2e-2 (tests/test_archs.py:60), "
+                   "f32 logits (head product in f32)",
+         max_memory_allocated_bytes=peak, launches=launches,
+         profile_prefill_B8_S4096=prof_prefill,
+         profile_decode_step_B8=prof_decode)
+    return launches
+
+
 def plain_lsh_probe(qpos, proj, bias, salt, tables, expand, *, metric, W,
                     n_probes, n_buckets):
     """The LSH probe with the plain version of its kernel."""
@@ -318,9 +580,17 @@ class PlainProbeKernels:
 
 
 def profile_serve(plan, batches, eps: float) -> dict:
-    """One more pass of the same stream under torch.profiler: device busy
-    share (kernel + copy time over wall time) and the largest kernels.
-    Runs after the main path's counters are read."""
+    """One more pass of the same stream under torch.profiler. Runs after
+    the main path's counters are read."""
+    def run():
+        for _ in plan.stream(batches, eps, depth=2):
+            pass
+    return profile_call(run)
+
+
+def profile_call(fn, top: int = 8) -> dict:
+    """fn() under torch.profiler: device busy share (kernel + copy time
+    over wall time) and the largest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -328,8 +598,7 @@ def profile_serve(plan, batches, eps: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in plan.stream(batches, eps, depth=2):
-            pass
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only (kernels, copies): host ops that launched
@@ -343,7 +612,7 @@ def profile_serve(plan, batches, eps: float) -> dict:
             "device_busy_ms": busy_ms if rows else None,
             "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
             "top_device_ms": [{"name": k[:80], "ms": ms, "calls": n}
-                              for k, ms, n in rows[:8]]}
+                              for k, ms, n in rows[:top]]}
 
 
 def main(argv=None) -> int:
@@ -364,6 +633,7 @@ def main(argv=None) -> int:
     from repro_torch.core.probe import (_lsh_pb, ivfpq_pool, ivfpq_state,
                                         lsh_state)
     from repro_torch.data import load_dataset
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (adc_rank, build, fused_mlp, lsh_gather,
                                      range_count)
     from repro_torch.kernels.ref import count_mismatches
@@ -374,7 +644,8 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------- 0: device
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    built = build.build("range_count", "fused_mlp", "lsh_gather", "adc_rank")
+    built = build.build("range_count", "fused_mlp", "lsh_gather", "adc_rank",
+                        "flash_attention")
     emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
@@ -423,9 +694,15 @@ def main(argv=None) -> int:
         adc_cases.append(adc_rank_case(qd, codebooks, pool, codes, n_cand,
                                        reps=5))
         del pool
+    lm_cfg = get_config("tinyllama_1_1b")
+    gen_cuda = torch.Generator(device="cuda").manual_seed(args.seed)
+    fa_cases = [flash_case(8, 4096, 4096, 4096, lm_cfg, gen_cuda, reps=10),
+                flash_case(8, 4000, 4000, 4000, lm_cfg, gen_cuda, reps=10),
+                flash_case(8, 4000, 4096, 4000, lm_cfg, gen_cuda, reps=3),
+                flash_case(1, 32768, 32768, 32768, lm_cfg, gen_cuda, reps=3)]
     emit("kernels", range_count=rc_cases, mlp_forward=mlp_cases,
          lsh_bucket_gather=lsh_cases, adc_rank=adc_cases,
-         probe_index_build_s=index_s)
+         flash_attention=fa_cases, probe_index_build_s=index_s)
     del proj, bias, salt, tables, expand, centroids, lists, codes, codebooks
     torch.cuda.empty_cache()
 
@@ -608,6 +885,9 @@ def main(argv=None) -> int:
              equal_to_plain_kernels_route=True,
              profile_second_pass=pprof)
 
+    # --------------------------------------------------------------- 5: lm
+    lm_launches = lm_phase(args.seed)
+
     # ------------------------------------------------------------- summary
     print(smi, flush=True)
     first_rc, first_mlp = rc_cases[0], mlp_cases[0]
@@ -640,6 +920,13 @@ def main(argv=None) -> int:
          **{k: adc_cases[0][k] for k in keys + ("device_ms",)},
          "shape": adc_cases[0]["shape"],
          "other_shapes": adc_cases[1:]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:121",
+         "launches": lm_launches,
+         **{k: fa_cases[0][k] for k in keys + ("device_ms",)},
+         "shape": fa_cases[0]["shape"],
+         "other_shapes": fa_cases[1:]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

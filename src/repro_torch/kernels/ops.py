@@ -8,13 +8,15 @@ Backends:
     reference of the engine tests.
 
 No padding happens here: the kernels take any nq/nr/m and mask R rows
-past `nr_valid` themselves, and the probe kernels any row count.
+past `nr_valid` themselves, the probe kernels any row count, and the
+attention kernel any S and T.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import adc_rank as adc_rank_kernel
+from repro_torch.kernels import flash_attention as flash_attention_kernel
 from repro_torch.kernels import fused_mlp, lsh_gather, ref
 from repro_torch.kernels import range_count as range_count_kernel
 
@@ -74,3 +76,16 @@ def adc_rank(q: torch.Tensor, codebooks: torch.Tensor, cand: torch.Tensor,
     if check_backend(backend) == "ref":
         return ref.adc_rank(q, codebooks, cand, codes, n_cand=n_cand)
     return adc_rank_kernel.adc_rank(q, codebooks, cand, codes, n_cand=n_cand)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_valid: int = -1,
+                    backend: str = "auto") -> torch.Tensor:
+    """Causal/GQA attention forward [B,S,H,Dv] in q's dtype; q [B,S,H,Dk],
+    k [B,T,K,Dk], v [B,T,K,Dv], keys at or past kv_valid (< 0: T) masked
+    (`kernels/flash_attention.py`). "ref" is the dense f32 softmax, which
+    keeps p in f32: it agrees with the kernel to bf16 rounding."""
+    if check_backend(backend) == "ref":
+        return ref.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    return flash_attention_kernel.flash_attention(q, k, v, causal=causal,
+                                                  kv_valid=kv_valid)

@@ -70,6 +70,28 @@ def lsh_bucket_gather(tables: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
     return torch.stack(blocks, dim=2).reshape(q, -1)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_valid: int = -1) -> torch.Tensor:
+    """Dense masked softmax attention in f32: every score at once, keys at
+    or past kv_valid (< 0: T) and, when causal, keys after the query
+    masked; a row with no live key gives 0. q [B,S,H,Dk], k [B,T,K,Dk],
+    v [B,T,K,Dv], H % K == 0; returns [B,S,H,Dv] in q's dtype."""
+    B, S, H, Dk = q.shape
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    valid = T if kv_valid < 0 else min(int(kv_valid), T)
+    qg = q.float().reshape(B, S, K, H // K, Dk)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / np.sqrt(Dk)
+    key = torch.arange(T, device=q.device)
+    mask = (key[None, :] < valid).expand(S, T)
+    if causal:
+        mask = mask & (key[None, :] <= torch.arange(S, device=q.device)[:, None])
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    o = o / torch.clamp(p.sum(dim=-1), min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, S, H, Dv).to(q.dtype)
+
+
 # ------------------------------------------------------- boundary ties
 def tie_tolerance(dim: int) -> float:
     """Dot-product window around eps inside which an f32 count may differ

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version at small shapes (the probe kernels also at the
-main path's), the launch counters, and filtered joins through the engine
-on the exact and the device-probe routes. Marked `gpu`; every test skips with a
+main path's), the launch counters, filtered joins through the engine
+on the exact and the device-probe routes, and the LM's prefill through
+the attention kernel. Marked `gpu`; every test skips with a
 reason where no CUDA device is present (decided inside the fixture, not
 at import). Run on the card with
 
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import adc_rank, fused_mlp, lsh_gather, range_count
+from repro_torch.kernels import (adc_rank, flash_attention, fused_mlp,
+                                 lsh_gather, range_count)
 from repro_torch.kernels.ref import count_mismatches
 
 pytestmark = pytest.mark.gpu
@@ -214,3 +216,71 @@ def test_probe_host_entries_default_to_the_card(cuda):
         probe.lsh_probe_buckets(Q, lsh.proj, lsh.bias, lsh.salt,
                                 device="cpu", **kw)[clean])
     assert cand.shape == (200, 4 * lsh.n_probes * lsh.cap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,D,kv_valid,causal", [
+    (2, 100, 100, 8, 8, 64, -1, True),        # ragged S, G 1
+    (1, 200, 256, 32, 4, 64, 200, True),      # G 8, padded keys masked
+    (2, 37, 96, 16, 2, 32, 70, False),        # cross attention, kv_valid
+    (1, 130, 130, 8, 1, 128, -1, True),       # MQA, D 128
+    (1, 70, 70, 4, 2, 16, 50, True),          # the SMOKE config's D 16
+])
+def test_flash_attention_kernel_vs_plain(cuda, dtype, B, S, T, H, K, D,
+                                         kv_valid, causal):
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(S + T + H)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dt) for shape in
+               ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          kv_valid=kv_valid)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    assert got.dtype == dt and got.shape == (B, S, H, D)
+    tol = 2e-5 if dt == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_q(cuda):
+    """q as a transposed view ([B,H,S,D] storage) is read by strides."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 8, 64, 64, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(2, 64, 2, 64, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    qt = q.transpose(1, 2)                          # [B,S,H,D], not contiguous
+    got = flash_attention.flash_attention(qt, k, v)
+    want = flash_attention.flash_attention_plain(qt.contiguous(), k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_lm_prefill_on_card_runs_the_kernel(cuda):
+    """SMOKE in bf16 at TinyLlama's head dim (64) on the card: one attention
+    launch per layer per prefill, none while decoding, and the kernel's
+    route within the JAX package's prefill bound (2e-2 of max |logit|) of
+    the ref route and of its own decode."""
+    from repro_torch.archs import build_model, make_batch
+    from repro_torch.configs import get_config
+    cfg = get_config("tinyllama_1_1b", smoke=True).scaled(
+        param_dtype="bfloat16", d_model=256, d_ff=512)
+    model = build_model(cfg, seed=0)
+    ref = build_model(cfg, seed=0, backend="ref")
+    toks = make_batch(cfg, "train", 2, 100)["tokens"]
+    before = flash_attention.KERNEL.launches
+    logits, cache = model.prefill({"tokens": toks})
+    assert flash_attention.KERNEL.launches == before + cfg.n_layers
+    want, _ = ref.prefill({"tokens": toks})
+    rel = float((logits.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert rel < 2e-2, rel
+    cache = model.cache_for_decode(cache, 116)
+    before = flash_attention.KERNEL.launches
+    nxt = logits.argmax(-1, keepdim=True)
+    dec, _ = model.decode_step(cache, nxt, 100)
+    assert flash_attention.KERNEL.launches == before
+    full, _ = model.prefill({"tokens": torch.cat([toks, nxt], 1)})
+    rel = float((dec.float() - full.float()).abs().max()
+                / full.float().abs().max())
+    assert rel < 2e-2, rel

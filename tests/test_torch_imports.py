@@ -53,6 +53,11 @@ def test_import_repro_torch_with_jax_blocked():
             "import repro_torch.kernels.lsh_gather, repro_torch.kernels.adc_rank\n"
             "import repro_torch.core.probe, repro_torch.core.joins.common\n"
             "import repro_torch.core.joins.lsh, repro_torch.core.joins.ivfpq\n"
+            "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
+            "import repro_torch.archs, repro_torch.archs.layers\n"
+            "import repro_torch.archs.transformer, repro_torch.archs.spec\n"
+            "import repro_torch.archs.frontends\n"
+            "import repro_torch.configs.tinyllama_1_1b\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
